@@ -1,6 +1,6 @@
 """Device bootstrap: all resampling rounds in one vmapped dispatch.
 
-TPU-native replacement for the reference's GSL multinomial bootstrap
+Device replacement for the reference's GSL multinomial bootstrap
 (``calculate_bootstrap``, src/process.c:289-321; ``model_bootstrap``,
 src/model.c:222-232; SURVEY.md §2.2 row 2): instead of a host double loop
 drawing one ``gsl_ran_multinomial`` per (round, pair), every round × pair

@@ -6,15 +6,15 @@ come from a SEEDED BINARY SEARCH in the per-subject suffix array
 (``esa.subject_index``) instead of precomputed [Sg, QB] tables:
 
 * no joint SA over subjects + queries (the 57% eco29 phase), no per-subject
-  flag scans, no table HBM — queries exist on device only as 4-bit packed
+  flag scans, no table memory — queries exist on device only as 4-bit packed
   words (~1/16 the bytes of the old int32 text),
 * the lucky-anchor extension (src/process.c:82-100) is the same word-compare
   primitive against the diagonal-projected subject position — the joint-text
   RMQ/LCE is gone.
 
 The loop is a fully ASYNCHRONOUS per-lane state machine; its unit cost is
-the ITERATION (~330 ns/lane on chip, volume-bound, MICROBENCH_SX.json), so
-the design packs a whole probe into as few iterations as possible:
+the ITERATION, so the design packs a whole probe into as few iterations as
+possible:
 
 * probe-START control (k-mer code, cache bracket, transition gathers) and
   the first window compare happen in the SAME iteration — an empty cache
@@ -118,9 +118,8 @@ def chain_walk_flat_sx(
 
     def swin2(pA, pB):
         """Both subject windows in ONE gather op ([lanes, 4] words):
-        the per-gather cost is a ~0.4-0.9 ms FIXED launch at production
-        widths (MICROBENCH_SX.json lane sweep), so op COUNT, not element
-        count, prices an iteration."""
+        each gather op has a fixed launch cost at production widths, so
+        op COUNT, not element count, prices an iteration."""
         jA = pA >> 4
         rA = pA & 15
         jB = pB >> 4

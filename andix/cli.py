@@ -3,7 +3,7 @@
 Mirrors ``src/andi.c``: same option set, validation, warnings, exit codes,
 defaults.  Extensions beyond the reference: ``--seed`` (reproducible
 bootstrap — the reference's TODO at src/andi.c:278), ``--backend`` and
-``--block-size`` (TPU scheduling knobs).
+``--block-size`` (device scheduling knobs).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ Options:
 """
 
 VERSION_TEXT = """andix {version}
-A TPU-native reimplementation of the andi anchor-distance method.
+A JAX reimplementation of the andi anchor-distance method for GPUs.
 License GPLv3+: GNU GPL version 3 or later <http://gnu.org/licenses/gpl.html>
 This is free software: you are free to change and redistribute it.
 There is NO WARRANTY, to the extent permitted by law.

@@ -1,4 +1,4 @@
-"""Enhanced-suffix-array subsystem, TPU-native redesign.
+"""Enhanced-suffix-array subsystem, redesigned for an accelerator.
 
 The reference builds one ESA per subject with libdivsufsort + sequential
 Φ-LCP + child table + 10-mer cache (``src/esa.c``), then walks it once per
@@ -13,5 +13,5 @@ and subject position for every query position — is produced by:
 
 This replaces the irregular per-character tree descent
 (``get_match_cached``/``get_interval``, src/esa.c:441-656) with large sorts
-and scans that map onto TPU vector units.
+and scans that map onto wide data-parallel hardware.
 """

@@ -31,9 +31,9 @@ PLCP scheme whose total gather volume is ~5-7N:
 * ``lcp[t] = PLCP[SA[t]]`` — one final gather.
 
 Overflow (ladder caps exhausted — requires the level buffer to have been
-truncated by the HBM budget on pathologically repetitive input) is reported
-to the caller, which falls back to the host Φ-LCP, same as the level-walk
-path.  Reference LCP construction: src/esa.c:373-426.
+truncated by the device-memory budget on pathologically repetitive input)
+is reported to the caller, which falls back to the host Φ-LCP, same as the
+level-walk path.  Reference LCP construction: src/esa.c:373-426.
 """
 
 from __future__ import annotations

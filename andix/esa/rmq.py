@@ -40,7 +40,7 @@ class RangeMin:
     suffg: jax.Array  # int32[nf] min over fine mins [c..group_end]
     tg: jax.Array  # int32[Lg, ng] full sparse table over group mins
     # element spans 1/2/4 for same-fine-block queries; None at huge
-    # blocks (12 B/symbol of HBM) — those fall back to the unrolled
+    # blocks (12 B/symbol of device memory) — those fall back to the unrolled
     # masked 8-way min over ``values``
     tsm: "jax.Array | None"
 
@@ -136,7 +136,8 @@ def range_min(rm: RangeMin, lo, hi):
     is_same = f1 == f2
 
     # same fine block: two overlapping element-span windows, or — when
-    # the tsm rows were dropped to save HBM — an unrolled masked 8-min
+    # the tsm rows were dropped to save device memory — an unrolled
+    # masked 8-min
     def same_path():
         if rm.tsm is None:
             out = rm.values[los]

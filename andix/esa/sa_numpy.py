@@ -1,10 +1,10 @@
 """NumPy prefix-doubling suffix array + Kasai LCP (host reference backend).
 
-This is the host-side mirror of the TPU doubling kernel
+This is the host-side mirror of the device doubling kernel
 (``andix.esa.doubling``): identical algorithm, used as the correctness oracle
 and as the CPU fallback.  Replaces libdivsufsort (reference ``esa_init_SA``,
 src/esa.c:294-304) — O(n log n) rank sorts instead of induced sorting, because
-sorts are the primitive that scales on TPU.
+sorts are the primitive that scales on an accelerator.
 """
 
 from __future__ import annotations

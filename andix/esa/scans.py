@@ -43,6 +43,7 @@ def _fs_combine(a, b):
     return (k, pre, g, sa_, suf)
 
 
+@functools.partial(jax.jit, static_argnames=("chunk",))
 def flag_scan(values: jax.Array, flags: jax.Array, sa_vals: jax.Array,
               chunk: int = 1024):
     """Inclusive scan of the flag-window monoid: per position returns
@@ -56,26 +57,23 @@ def flag_scan(values: jax.Array, flags: jax.Array, sa_vals: jax.Array,
 
     Flagged elements contribute their value to the gap ending at them and
     then reset the running min.  This carries everything the matching
-    statistics need in one contiguous pass — no random gathers.  Same
-    two-level evaluation as ``segmented_min_scan``.  A plain (un-jitted)
-    wrapper so the ANDIX_FLAG_SCAN A/B switch is honored at CALL time —
-    reading it inside a jitted body would pin the first-traced mode per
-    shape (ADVICE r4); both implementations are jitted separately and
-    produce identical outputs (measured at parity on TPU, PERF.md r4)."""
-    if _pallas_available():
-        # CPU backends only run Pallas in interpret mode — keep the A/B
-        # switch usable (if slow) off-TPU instead of crashing
-        interpret = jax.default_backend() != "tpu"
-        return _flag_scan_pallas(
-            values, flags, sa_vals, chunk, interpret=interpret
-        )
-    return _flag_scan_xla(values, flags, sa_vals, chunk)
+    statistics need in one contiguous pass — no random gathers.  Both
+    evaluations are two-level (in-chunk scans, then an associative scan
+    over chunk carries); the GPU lowering runs the in-chunk scans as a
+    Pallas kernel through Triton (``_flag_scan_triton``), every other
+    platform the XLA ``lax.scan`` (``_flag_scan_xla``).  Outputs are
+    identical."""
+    return jax.lax.platform_dependent(
+        values, flags, sa_vals,
+        cuda=functools.partial(_flag_scan_triton, chunk=chunk),
+        default=functools.partial(_flag_scan_xla, chunk=chunk),
+    )
 
 
-@functools.partial(jax.jit, static_argnames=("chunk",))
 def _flag_scan_xla(values: jax.Array, flags: jax.Array, sa_vals: jax.Array,
                    chunk: int = 1024):
-    """XLA two-level evaluation of ``flag_scan`` (the default)."""
+    """``flag_scan`` with the in-chunk scan as one ``lax.scan`` over the
+    chunk offset, vectorized across chunks."""
     n = values.shape[0]
     nb = -(-n // chunk)
     pad = nb * chunk - n
@@ -124,6 +122,127 @@ def _flag_scan_xla(values: jax.Array, flags: jax.Array, sa_vals: jax.Array,
     return back(k), back(g), back(sa_), back(suf)
 
 
+
+# lanes (chunk columns) per Triton program: one int32 element per thread
+# at 4 warps
+_TB = 128
+_INF = 2**31 - 1  # plain int: a jnp constant would be captured as an
+# implicit kernel input, which pallas_call rejects
+
+
+def _fs_step(state, val, fl, sv):
+    """state := combine(state, one element) — ``_fs_combine`` specialized
+    to a single right-hand element (k2 = flag, pre2 = val, g2/suf2 = INF).
+    ``fl`` is int32 0/1."""
+    k, pre, g, sa_, suf = state
+    has = k > 0
+    flb = fl != 0
+    bridge = jnp.minimum(suf, val)
+    k2 = jnp.minimum(k + fl, 2)
+    pre2 = jnp.where(has, pre, jnp.minimum(pre, val))
+    sa2 = jnp.where(flb, sv, sa_)
+    g2 = jnp.where(flb, jnp.where(has, bridge, _INF), g)
+    suf2 = jnp.where(flb, _INF, jnp.where(has, bridge, _INF))
+    return (k2, pre2, g2, sa2, suf2)
+
+
+def _flag_scan_triton(values: jax.Array, flags: jax.Array,
+                      sa_vals: jax.Array, chunk: int = 1024,
+                      interpret: bool = False):
+    """``flag_scan`` with the in-chunk scans as two Pallas kernels through
+    Triton.  The data is laid out [chunk, chunks] so every step of a
+    program's in-chunk loop loads one contiguous row of ``_TB`` chunk
+    columns; programs share nothing, so the scan runs twice:
+
+    * pass 1: each chunk's final monoid state ([chunks] x 5, tiny),
+    * XLA: exclusive associative prefix over those finals,
+    * pass 2: each chunk re-scanned from its prefix, writing the combined
+      (k, g, sa, suf) per position.
+
+    ``interpret=True`` runs the kernels in the Pallas interpreter (tests
+    on hosts without a GPU)."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as pltriton
+
+    n = values.shape[0]
+    nb = -(-n // chunk)
+    nbp = -(-nb // _TB) * _TB
+    padn = nbp * chunk - n
+    v = jnp.concatenate([values.astype(jnp.int32), jnp.full(padn, INF32)])
+    fl = jnp.concatenate(
+        [flags.astype(jnp.int32), jnp.zeros(padn, jnp.int32)]
+    )
+    sv = jnp.concatenate(
+        [sa_vals.astype(jnp.int32), jnp.full(padn, jnp.int32(-1))]
+    )
+
+    def t2(x):
+        return x.reshape(nbp, chunk).T  # (chunk, nbp)
+
+    v2, f2, s2 = t2(v), t2(fl), t2(sv)
+    nt = nbp // _TB
+    col_block = pl.BlockSpec((chunk, _TB), lambda i: (0, i))
+    lane_block = pl.BlockSpec((_TB,), lambda i: (i,))
+    route = {} if interpret else {
+        "backend": "triton",
+        "compiler_params": pltriton.CompilerParams(num_warps=4,
+                                                   num_stages=2),
+    }
+
+    def finals_kernel(v_ref, f_ref, s_ref, k_o, p_o, g_o, sa_o, su_o):
+        def body(j, st):
+            return _fs_step(st, v_ref[j, :], f_ref[j, :], s_ref[j, :])
+
+        init = (jnp.zeros(_TB, jnp.int32), jnp.full(_TB, _INF, jnp.int32),
+                jnp.full(_TB, _INF, jnp.int32),
+                jnp.full(_TB, -1, jnp.int32),
+                jnp.full(_TB, _INF, jnp.int32))
+        k, pre, g, sa_, suf = jax.lax.fori_loop(0, chunk, body, init)
+        k_o[...] = k
+        p_o[...] = pre
+        g_o[...] = g
+        sa_o[...] = sa_
+        su_o[...] = suf
+
+    finals = pl.pallas_call(
+        finals_kernel, grid=(nt,), in_specs=[col_block] * 3,
+        out_specs=(lane_block,) * 5,
+        out_shape=(jax.ShapeDtypeStruct((nbp,), jnp.int32),) * 5,
+        interpret=interpret, name="flag_scan_finals", **route,
+    )(v2, f2, s2)
+
+    inc = jax.lax.associative_scan(_fs_combine, finals)
+    prefix = tuple(
+        jnp.concatenate([i0[None], x[:-1]])
+        for i0, x in zip(
+            (jnp.int32(0), INF32, INF32, jnp.int32(-1), INF32), inc
+        )
+    )
+
+    def seeded_kernel(pk, pp, pg, psa, psu, v_ref, f_ref, s_ref,
+                      k_o, g_o, sa_o, su_o):
+        def body(j, st):
+            st = _fs_step(st, v_ref[j, :], f_ref[j, :], s_ref[j, :])
+            k, _, g, sa_, suf = st
+            k_o[j, :] = k
+            g_o[j, :] = g
+            sa_o[j, :] = sa_
+            su_o[j, :] = suf
+            return st
+
+        init = (pk[...], pp[...], pg[...], psa[...], psu[...])
+        jax.lax.fori_loop(0, chunk, body, init)
+
+    outs = pl.pallas_call(
+        seeded_kernel, grid=(nt,),
+        in_specs=[lane_block] * 5 + [col_block] * 3,
+        out_specs=(col_block,) * 4,
+        out_shape=(jax.ShapeDtypeStruct((chunk, nbp), jnp.int32),) * 4,
+        interpret=interpret, name="flag_scan_seeded", **route,
+    )(*prefix, v2, f2, s2)
+    return tuple(x.T.reshape(-1)[:n] for x in outs)
+
+
 @functools.partial(jax.jit, static_argnames=("chunk",))
 def segmented_min_scan(values: jax.Array, resets: jax.Array,
                        chunk: int = 1024) -> jax.Array:
@@ -165,167 +284,3 @@ def segmented_min_scan(values: jax.Array, resets: jax.Array,
 
     out2 = jnp.where(seen2, out2, jnp.minimum(prefix[None, :], out2))
     return out2.T.reshape(-1)[:n]
-
-
-# ---------------------------------------------------------------------------
-# Pallas flag scan (TPU): the lax.scan evaluation above runs ~1024
-# sequential XLA loop steps per call; the same monoid as a Pallas kernel
-# streams [chunk, TR]-lane tiles through VMEM with the sequential axis on
-# sublanes — per-subject table builds are the top family-scale phase
-# (PERF.md r4), and the two flag scans are its compute half.
-#
-# Two passes (memory-optimal: per-position `pre` never materializes):
-#   pass 1: per-chunk FINAL states only ([nb] x 5, tiny),
-#   XLA:    exclusive associative prefix over chunk finals (nb elements),
-#   pass 2: re-scan each chunk SEEDED with its prefix, emitting the
-#           combined (k, g, sa, suf) per position directly.
-# ---------------------------------------------------------------------------
-
-_TR = 256  # lanes per kernel program (VMEM: ~(3+4) x chunk x TR x 4B)
-
-
-_INF = 2**31 - 1  # plain int: jnp module constants would be captured
-# as implicit pallas kernel inputs, which pallas_call rejects
-
-
-def _fs_step(state, val, fl, sv):
-    """state := combine(state, one element) — _fs_combine specialized to a
-    single right-hand element (k2 = flag, pre2 = val, g2/suf2 = INF)."""
-    k, pre, g, sa_, suf = state
-    has = k > 0
-    fi = fl.astype(jnp.int32)
-    bridge = jnp.minimum(suf, val)
-    k2 = jnp.minimum(k + fi, 2)
-    pre2 = jnp.where(has, pre, jnp.minimum(pre, val))
-    sa2 = jnp.where(fl, sv, sa_)
-    g2 = jnp.where(fl, jnp.where(has, bridge, _INF), g)
-    suf2 = jnp.where(fl, _INF, jnp.where(has, bridge, _INF))
-    return (k2, pre2, g2, sa2, suf2)
-
-
-def _pallas_available() -> bool:
-    """A/B switch for the Pallas evaluation (ANDIX_FLAG_SCAN=pallas).
-
-    Measured on the live chip (25.2M elements, warm): XLA two-level scan
-    53 ms, Pallas kernel 55 ms, outputs identical — both are
-    bandwidth-bound, so the kernel buys nothing and XLA stays the
-    default.  The kernel remains as the committed handwritten-kernel
-    comparison point (VERDICT r3 weak #3) and as insurance should a
-    future jaxlib regress the scan lowering."""
-    import os
-
-    return os.environ.get("ANDIX_FLAG_SCAN", "xla") == "pallas"
-
-
-@functools.partial(jax.jit, static_argnames=("chunk", "interpret"))
-def _flag_scan_pallas(values, flags, sa_vals, chunk: int = 1024,
-                      interpret: bool = False):
-    """Pallas evaluation of ``flag_scan`` (identical outputs)."""
-    from jax.experimental import pallas as pl
-
-    try:
-        from jax.experimental.pallas import tpu as pltpu
-
-        vmem = pltpu.VMEM
-    except ImportError:  # pragma: no cover
-        vmem = None
-
-    n = values.shape[0]
-    nb = -(-n // chunk)
-    # lane padding so nb divides _TR
-    nbp = -(-nb // _TR) * _TR
-    padn = nbp * chunk - n
-    v = jnp.concatenate([values.astype(jnp.int32), jnp.full(padn, INF32)])
-    fl = jnp.concatenate([flags.astype(bool), jnp.zeros(padn, bool)])
-    sv = jnp.concatenate(
-        [sa_vals.astype(jnp.int32), jnp.full(padn, jnp.int32(-1))]
-    )
-    # [chunk, nbp]: sequential axis on sublanes, lanes = chunk ids
-    v2 = v.reshape(nbp, chunk).T
-    f2 = fl.reshape(nbp, chunk).T
-    s2 = sv.reshape(nbp, chunk).T
-
-    def spec(block, imap):
-        if vmem is None:
-            return pl.BlockSpec(block, imap)
-        return pl.BlockSpec(block, imap, memory_space=vmem)
-
-    in_specs = [
-        spec((chunk, _TR), lambda i: (0, i)),
-        spec((chunk, _TR), lambda i: (0, i)),
-        spec((chunk, _TR), lambda i: (0, i)),
-    ]
-
-    def finals_kernel(v_ref, f_ref, s_ref, k_o, p_o, g_o, sa_o, su_o):
-        def body(j, st):
-            return _fs_step(st, v_ref[j, :], f_ref[j, :], s_ref[j, :])
-
-        z = jnp.zeros(_TR, jnp.int32)
-        init = (z, jnp.full(_TR, _INF, jnp.int32),
-                jnp.full(_TR, _INF, jnp.int32),
-                jnp.full(_TR, -1, jnp.int32),
-                jnp.full(_TR, _INF, jnp.int32))
-        k, pre, g, sa_, suf = jax.lax.fori_loop(0, chunk, body, init)
-        k_o[0, :] = k
-        p_o[0, :] = pre
-        g_o[0, :] = g
-        sa_o[0, :] = sa_
-        su_o[0, :] = suf
-
-    nt = nbp // _TR
-    fshape = jax.ShapeDtypeStruct((nt, _TR), jnp.int32)
-    finals = pl.pallas_call(
-        finals_kernel,
-        grid=(nt,),
-        in_specs=in_specs,
-        out_specs=tuple(
-            spec((1, _TR), lambda i: (i, 0)) for _ in range(5)
-        ),
-        out_shape=(fshape,) * 5,
-        interpret=interpret,
-    )(v2, f2, s2)
-    fin = tuple(x.reshape(-1) for x in finals)  # [nbp] x 5
-
-    # exclusive prefix over chunk finals (lane axis), tiny
-    inc = jax.lax.associative_scan(_fs_combine, fin)
-    prefix = tuple(
-        jnp.concatenate([i0[None], x[:-1]])
-        for i0, x in zip(
-            (jnp.int32(0), INF32, INF32, jnp.int32(-1), INF32), inc
-        )
-    )
-    pre2d = tuple(p.reshape(nt, _TR) for p in prefix)
-
-    def seeded_kernel(pk, pp, pg, psa, psu, v_ref, f_ref, s_ref,
-                      k_o, g_o, sa_o, su_o):
-        def body(j, st):
-            st = _fs_step(st, v_ref[j, :], f_ref[j, :], s_ref[j, :])
-            k, pre, g, sa_, suf = st
-            k_o[j, :] = k
-            g_o[j, :] = g
-            sa_o[j, :] = sa_
-            su_o[j, :] = suf
-            return st
-
-        init = (pk[0, :], pp[0, :], pg[0, :], psa[0, :], psu[0, :])
-        jax.lax.fori_loop(0, chunk, body, init)
-
-    oshape = jax.ShapeDtypeStruct((chunk, nbp), jnp.int32)
-    outs = pl.pallas_call(
-        seeded_kernel,
-        grid=(nt,),
-        in_specs=[
-            spec((1, _TR), lambda i: (i, 0)) for _ in range(5)
-        ] + in_specs,
-        out_specs=tuple(
-            spec((chunk, _TR), lambda i: (0, i)) for _ in range(4)
-        ),
-        out_shape=(oshape,) * 4,
-        interpret=interpret,
-    )(*pre2d, v2, f2, s2)
-
-    def back(x):
-        return x.T.reshape(-1)[:n]
-
-    k, g, sa_, suf = outs
-    return back(k), back(g), back(sa_), back(suf)

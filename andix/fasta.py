@@ -3,8 +3,8 @@
 Host-side replacement for the reference's vendored pfasta parser
 (``libs/pfasta.c``) and I/O plumbing (``src/io.c``).  Instead of a buffered
 fd state machine with SSE2 whitespace scanning, the whole file is read once
-and split with vectorized NumPy byte ops — parsing is not on the TPU critical
-path (SURVEY.md §2.2).
+and split with vectorized NumPy byte ops — parsing is not on the device
+critical path (SURVEY.md §2.2).
 
 Parsing rules preserved from pfasta:
 

@@ -1,23 +1,26 @@
-"""Multi-chip pair-grid execution over a TPU mesh.
+"""Multi-device pair-grid execution over a 1-D device mesh.
 
-TPU-native replacement for the reference's OpenMP pair scheduler
+Device replacement for the reference's OpenMP pair scheduler
 (``src/dist_hack.h:8,16``): the N×N comparison grid is sharded by *subject
 rows* across a 1-D device mesh ("s" axis).  Each device rebuilds its block's
 joint text from the 2-bit upload, builds the joint suffix array + LCP
 (fully traced fixed-round doubling + level-walk), computes matching
 statistics and replay tables for its local subjects, runs the on-device
 anchor replay, and the per-row [L, G, 16] substitution-count tiles are
-merged with an ``all_gather`` over the mesh — collectives ride ICI instead
-of shared memory.  Queries are replicated (forward strands only, small).
+merged with an ``all_gather`` over the mesh.  The mesh is flat: every
+device reaches every other at the same rate (NVLink all to all), so its
+shape follows the subject split alone.  Queries are replicated (forward
+strands only, small).
 
-This is the production multi-device path: ``pipeline.calculate_matrix``
-dispatches here whenever more than one accelerator device is visible.
+This is the production multi-device path for single-block families:
+``pipeline.calculate_matrix`` dispatches here whenever more than one
+device is visible and the joint schedule is chosen.
 ``__graft_entry__.dryrun_multichip`` validates it numerically against the
 NumPy backend on a virtual CPU mesh.
 
 Multi-host scaffolding: ``maybe_init_distributed`` wires
 ``jax.distributed.initialize`` from the standard coordinator env vars, so a
-pod-slice run only needs ANDIX_COORDINATOR/ANDIX_NUM_PROCESSES/
+multi-host run only needs ANDIX_COORDINATOR/ANDIX_NUM_PROCESSES/
 ANDIX_PROCESS_ID (or the JAX defaults) set per host.
 """
 
@@ -31,22 +34,12 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.6 top-level API (check_vma keyword)
-    from jax import shard_map as _shard_map
 
-    def shard_map(f, *, mesh, in_specs, out_specs):
-        return _shard_map(
-            f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_vma=False,
-        )
-except ImportError:  # pragma: no cover - older jax (check_rep keyword)
-    from jax.experimental.shard_map import shard_map as _shard_map_old
-
-    def shard_map(f, *, mesh, in_specs, out_specs):
-        return _shard_map_old(
-            f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_rep=False,
-        )
+def shard_map(f, *, mesh, in_specs, out_specs):
+    return jax.shard_map(
+        f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+        check_vma=False,
+    )
 
 from .esa import matchstats_jax, rmq
 from .esa.backend_jax import _build_device_text_packed, _device_segid
@@ -254,7 +247,8 @@ def sharded_block_counts(
         # (no host fallback there) — run the serial schedule instead,
         # which reroutes overflowing blocks to the host LCP
         raise ShardingUnsupported(
-            f"level buffer for {B}-symbol blocks exceeds the HBM budget"
+            f"level buffer for {B}-symbol blocks exceeds the device-memory "
+            f"budget"
         )
 
     packs, excps, excvs = [], [], []
@@ -391,8 +385,9 @@ def _host_counts_from_sharded_events(
         return None
 
     def local_shards(arr):
+        # an unsplit axis (a one-device mesh) reports slice(None)
         return {
-            s.index[0].start: np.asarray(s.data)[0]
+            s.index[0].start or 0: np.asarray(s.data)[0]
             for s in arr.addressable_shards
         }
 

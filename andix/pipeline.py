@@ -1,6 +1,6 @@
 """Distance-matrix pipeline: subject blocks → joint SA → match stats → replay.
 
-TPU-native replacement for the reference pair scheduler
+Device replacement for the reference pair scheduler
 (``distMatrix``/``distMatrixLM``, src/dist_hack.h): instead of OpenMP threads
 each building one subject ESA and scanning queries serially, subjects are
 grouped into *blocks*; per block one joint suffix array over all block
@@ -104,18 +104,10 @@ def make_blocks(
     return blocks
 
 
-# Measured-envelope HBM budget per PADDED block symbol (see device_plan
-# docstring).  r3 calibrated 160 empirically (eco29 n=8 OOM).  r4 got it
-# to 128 in four steps, each probed at a 100.7M-symbol block on-chip:
-# the segmented path's jump table (derived from mlun instead), two rank
-# levels (wide initial ranks), the events-mode device text (rebuilt on
-# demand by the loop fallback), and the RMQ element-span rows at huge
-# blocks (masked 8-min fallback; backend _RMQ_SMALL_MAX) with the RMQ
-# built as its own program so its transients do not co-peak with the
-# block tables.  Result: 8 x 5 Mbp runs in TWO blocks (6+2 subjects)
-# instead of four, and eco29-scale plans go from 3-subject x 4-chunk
-# (50 SA builds) to 5-subject x 3-chunk (18 builds) on the phase that
-# dominates the end-to-end run (ECO29_r04_n29.json).
+# Device-memory budget per PADDED block symbol (see device_plan
+# docstring): the peak of the hybrid SA+LCP programs plus the resident
+# block arrays.  Probed on the first accelerator this ran on; chip_smoke.py
+# prints the measured peak per padded symbol beside it.
 # ANDIX_BYTES_PER_SYM overrides for probing.
 BYTES_PER_PADDED_SYM = int(os.environ.get("ANDIX_BYTES_PER_SYM", "128"))
 
@@ -126,23 +118,22 @@ def device_plan(
     """Memory-aware (block_syms, max_query_syms) for device blocks.
 
     The peak resident footprint is the hybrid SA+LCP pair of programs:
-    ~14 capped rank-level rows + loop state + int64 sort operands, then
-    the PLCP fill buffers + packed words while the level stack is still
-    live, plus the resident block arrays and the range-min tables ≈ 160
-    bytes per PADDED symbol.  Blocks are capped at the largest shape
-    BUCKET whose padded footprint fits DEVICE_MEM_BYTES — the real-symbol
-    count is budgeted against bucket(n), not n (an 80M-real block pads to
-    100.7M; budgeting real symbols at a thinner estimate OOMed 16GB HBM
-    at eco29 n=8).
+    capped rank-level rows + loop state + int64 sort operands, then the
+    PLCP fill buffers + packed words while the level stack is still live,
+    plus the resident block arrays and the range-min tables
+    (``BYTES_PER_PADDED_SYM``).  Blocks are capped at the largest shape
+    BUCKET whose padded footprint fits the device budget
+    (``backend_jax.device_mem_bytes``) — the real-symbol count is budgeted
+    against bucket(n), not n, since a block's arrays are padded to it.
     When the query total no longer fits alongside a subject, queries are
-    chunked at half the cap.  ANDIX_DEVICE_MEM_GB tunes the budget,
-    ANDIX_MAX_QUERY_SYMS overrides the chunk bound."""
-    from .esa.backend_jax import DEVICE_MEM_BYTES, bucket
+    chunked at half the cap.  ANDIX_MAX_QUERY_SYMS overrides the chunk
+    bound."""
+    from .esa.backend_jax import bucket, device_mem_bytes
 
     bytes_per_padded = BYTES_PER_PADDED_SYM
     largest = max(s.len + 1 for s in subjects)
     query_total = sum((s.len - 1) // 2 + 1 for s in subjects)
-    budget_syms = DEVICE_MEM_BYTES // bytes_per_padded
+    budget_syms = device_mem_bytes() // bytes_per_padded
     # largest bucket value that fits the budget: real blocks up to that
     # size pad to at most that bucket
     cap = b = 1 << 16
@@ -386,6 +377,33 @@ def _process_block(
             ckpt.save_row(i, n, row_acc[i])
 
 
+def auto_schedule(
+    seqs: list[Seq],
+    subjects: list[Subject],
+    block_syms: int,
+    max_query_syms: int | None,
+) -> str:
+    """The schedule ``ANDIX_INDEX=auto`` picks for a device run: "joint"
+    or "subject".
+
+    The joint schedule re-sorts the block text once per query chunk and
+    rebuilds subjects once per block; the subject index wins exactly when
+    the joint plan would split (joint is faster at single-block plans,
+    subject at multi-block or query-chunked ones).  Multi-process runs
+    stay on the shard_map joint path (no cross-process subject-index
+    merge yet)."""
+    import jax
+
+    blocks = make_blocks(
+        subjects, block_syms, False, query_base=max_query_syms
+    )
+    query_total = sum(s.len + 1 for s in seqs)
+    chunked = max_query_syms is not None and query_total > max_query_syms
+    if (len(blocks) > 1 or chunked) and jax.process_count() == 1:
+        return "subject"
+    return "joint"
+
+
 def calculate_matrix(
     seqs: list[Seq],
     ctx: Context,
@@ -442,29 +460,10 @@ def calculate_matrix(
         mode = os.environ.get("ANDIX_INDEX", "auto")
         use_sx = mode == "subject"
         if mode == "auto":
-            # the joint schedule re-sorts the block text once per query
-            # chunk and rebuilds subjects once per block; the subject
-            # index wins exactly when the joint plan would split
-            # (measured: joint faster at single-block 1 Mbp configs,
-            # subject faster at genome-scale multi-block/chunked plans).
-            # Multi-device single-process runs use the subject schedule's
-            # device-parallel group drivers; multi-process runs stay on
-            # the shard_map joint path (no cross-process sx merge yet).
-            import jax
-
-            probe_blocks = make_blocks(
-                [subjects[i] for i in todo], block_syms, False,
-                query_base=max_query_syms,
-            )
-            query_total = sum(s.len + 1 for s in seqs)
-            chunked = (
-                max_query_syms is not None
-                and query_total > max_query_syms
-            )
-            use_sx = (
-                (len(probe_blocks) > 1 or chunked)
-                and jax.process_count() == 1
-            )
+            use_sx = auto_schedule(
+                seqs, [subjects[i] for i in todo], block_syms,
+                max_query_syms,
+            ) == "subject"
         if use_sx:
             # subject-only index schedule (one index per subject, queries
             # streamed — reference architecture, src/dist_hack.h:64):

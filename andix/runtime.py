@@ -1,6 +1,6 @@
 """Run configuration and soft-error state.
 
-TPU-native replacement for the reference's global flag word and model enum
+Replacement for the reference's global flag word and model enum
 (``src/global.h:20-99``, globals in ``src/andi.c:45-50``).  Instead of a
 process-wide bitmask mutated from OpenMP threads, configuration is an explicit
 immutable-ish context object threaded through the pipeline; only the warning

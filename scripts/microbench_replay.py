@@ -1,4 +1,4 @@
-"""Per-iteration cost anatomy of the replay while_loop on the live TPU.
+"""Per-iteration cost anatomy of the replay while_loop on the device.
 
 Times stripped-down while_loops (30k iterations, [8,8] lanes) that each add
 one ingredient of the production replay body:

@@ -1,15 +1,14 @@
-"""Doubling-sort attack A/B (VERDICT r4 #6): can a radix-partition round
-beat lax.sort on this chip?
+"""Doubling-sort attack A/B: can a radix-partition round beat lax.sort on
+this device?
 
 Measures, at 25M rows (the doubling round's shape):
-  1. lax.sort, 1 int32 key                      (the measured 87 ms floor)
+  1. lax.sort, 1 int32 key                      (the floor)
   2. lax.sort, int64 key + int32 payload        (the actual doubling op)
   3. ONE stable radix-partition round by an 8-bit digit — histogram +
      exclusive scan + scatter — the building block of any LSD radix sort
      (a 50-bit doubling key needs ~7 such rounds)
   4. raw random-scatter throughput (the partition round's binding
-     primitive; gathers measured 9-15 ns/elem, scatters were never
-     profiled)
+     primitive)
 
 If one partition round costs more than ~1/7 of the full lax.sort, radix
 is dead on this platform regardless of kernel language — the scatter is
@@ -68,7 +67,8 @@ def raw_scatter(k, v, idx):
     a strict lower bound for one partition round even with FREE
     per-digit ranks.  (XLA cannot express the stable rank without a
     256xN one-hot cumsum — 100+ GB at 25M rows — or a sort; a Pallas
-    kernel could rank in VMEM, but it still ends in this scatter.)"""
+    kernel could rank in on-chip memory, but it still ends in this
+    scatter.)"""
     return (
         jnp.zeros_like(k).at[idx].set(k),
         jnp.zeros_like(v).at[idx].set(v),

@@ -1,9 +1,9 @@
 """Per-subject table-build cost anatomy at family scale (r4: tables are
 the new top phase).  Times match_stats_device, the blob gathers, and the
 jump build separately on real n=22-shaped data."""
-import sys, time
+import os, sys, time
 import numpy as np, jax, jax.numpy as jnp
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import bench as benchmod
 from andix.runtime import Context
 from andix.sequence import subject_init

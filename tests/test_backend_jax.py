@@ -275,7 +275,9 @@ class TestDeviceLCP:
         padded = backend_jax.bucket(2 * (2 * 800 + 2))
         # budget = (68B - 40B) / 4B = 7 levels: >= 6 so the device path is
         # tried, fewer than identical genomes need, so collection overflows
-        monkeypatch.setattr(backend_jax, "DEVICE_MEM_BYTES", 68 * padded)
+        monkeypatch.setattr(
+            backend_jax, "device_mem_bytes", lambda: 68 * padded
+        )
         overflowed = {"n": 0}
         orig = doubling.sa_lcp_device
 
@@ -369,57 +371,72 @@ class TestJaxPipeline:
         assert self._grids_equal(M_one, M_blk, 5)
 
 
-class TestPallasFlagScan:
-    """Pallas evaluation of the flag-scan monoid (andix/esa/scans.py):
-    the in-chunk lax.scan replaced by a two-pass streaming kernel — per-
-    subject table builds are the top family-scale phase (PERF.md r4)."""
+def _flag_scan_oracle(vals, flags, sa):
+    """Brute-force flag-window scan: per position the flag count (capped
+    at 2), the min over (second-last flag, last flag], the last flag's
+    payload, and the min over (last flag, here]."""
+    inf = 2**31 - 1
+    n = len(vals)
+    out = np.zeros((4, n), dtype=np.int64)
+    k, g, last_sa, suf = 0, inf, -1, inf
+    for t in range(n):
+        v = int(vals[t])
+        if flags[t]:
+            g = min(suf, v) if k else inf
+            suf = inf
+            last_sa = int(sa[t])
+            k = min(k + 1, 2)
+        elif k:
+            suf = min(suf, v)
+        out[:, t] = (k, g, last_sa, suf)
+    return out
 
-    def test_interpret_equals_xla(self, rng):
-        import jax.numpy as jnp
 
-        from andix.esa import scans
+_FLAG_CASES = [(5000, 1024, 0.1), (1024, 1024, 0.1), (70001, 1024, 0.1),
+               (333, 64, 0.1), (64, 64, 0.1), (3000, 1024, 1.0),
+               (3000, 1024, 0.0)]
 
-        for n, chunk in [(5000, 1024), (1024, 1024), (70001, 1024),
-                         (333, 64), (64, 64)]:
-            vals = rng.integers(0, 100, n).astype(np.int32)
-            flags = rng.random(n) < 0.1
-            sa = rng.integers(0, n, n).astype(np.int32)
-            ref = scans.flag_scan(
-                jnp.asarray(vals), jnp.asarray(flags), jnp.asarray(sa),
-                chunk,
-            )
-            got = scans._flag_scan_pallas(
-                jnp.asarray(vals), jnp.asarray(flags), jnp.asarray(sa),
-                chunk, interpret=True,
-            )
-            for a, b in zip(ref, got):
-                assert (np.asarray(a) == np.asarray(b)).all()
 
-    def test_all_flagged_and_none_flagged(self, rng):
-        import jax.numpy as jnp
+def _check_flag_scan(fn, n, chunk, rate):
+    import jax.numpy as jnp
 
-        from andix.esa import scans
+    rng = np.random.default_rng(n)
+    vals = rng.integers(0, 100, n).astype(np.int32)
+    flags = rng.random(n) < rate
+    sa = rng.integers(0, n, n).astype(np.int32)
+    got = fn(jnp.asarray(vals), jnp.asarray(flags), jnp.asarray(sa), chunk)
+    want = _flag_scan_oracle(vals, flags, sa)
+    for row, arr in zip(want, got):
+        assert (np.asarray(arr) == row).all()
 
-        n = 3000
-        vals = rng.integers(0, 50, n).astype(np.int32)
-        sa = np.arange(n, dtype=np.int32)
-        for flags in (np.ones(n, bool), np.zeros(n, bool)):
-            ref = scans.flag_scan(
-                jnp.asarray(vals), jnp.asarray(flags), jnp.asarray(sa)
-            )
-            got = scans._flag_scan_pallas(
-                jnp.asarray(vals), jnp.asarray(flags), jnp.asarray(sa),
-                interpret=True,
-            )
-            for a, b in zip(ref, got):
-                assert (np.asarray(a) == np.asarray(b)).all()
 
-    def test_default_stays_on_xla(self, monkeypatch):
-        """Measured at parity on TPU (53 vs 55 ms at 25M, PERF.md r4):
-        XLA is the default; ANDIX_FLAG_SCAN=pallas is the A/B switch."""
-        from andix.esa import scans
+_FLAG_IDS = [f"n{n}-c{c}-f{r}" for n, c, r in _FLAG_CASES]
 
-        monkeypatch.delenv("ANDIX_FLAG_SCAN", raising=False)
-        assert scans._pallas_available() is False
-        monkeypatch.setenv("ANDIX_FLAG_SCAN", "pallas")
-        assert scans._pallas_available() is True
+
+@pytest.mark.parametrize("n,chunk,rate", _FLAG_CASES, ids=_FLAG_IDS)
+def test_flag_scan_matches_oracle(n, chunk, rate):
+    """``scans.flag_scan`` (the XLA evaluation off the GPU) against the
+    sequential oracle, including all-flagged and none-flagged inputs."""
+    _check_flag_scan(scans.flag_scan, n, chunk, rate)
+
+
+@pytest.mark.parametrize("n,chunk,rate", _FLAG_CASES, ids=_FLAG_IDS)
+def test_flag_scan_triton_interpret_matches_oracle(n, chunk, rate):
+    """The GPU kernels of ``flag_scan`` (Pallas through Triton), run in the
+    Pallas interpreter, against the same oracle and cases."""
+    import functools
+
+    _check_flag_scan(
+        functools.partial(scans._flag_scan_triton, interpret=True),
+        n, chunk, rate,
+    )
+
+
+@pytest.mark.gpu
+def test_flag_scan_on_gpu_matches_oracle(gpu_device):
+    """``flag_scan`` as the GPU lowers it (the compiled Triton kernels)."""
+    import jax
+
+    with jax.default_device(gpu_device):
+        for n, chunk, rate in _FLAG_CASES:
+            _check_flag_scan(scans.flag_scan, n, chunk, rate)

@@ -1,7 +1,7 @@
 """Multi-device tests on the 8-virtual-CPU mesh: the sharded pair grid
 (shard_map + all_gather tile merge) must be exactly equal to the serial
 schedules — the reference's mode-equivalence requirement
-(test/test_extra.sh:19-22) extended to the TPU-native parallel layout."""
+(test/test_extra.sh:19-22) extended to the multi-device parallel layout."""
 
 import numpy as np
 import pytest
@@ -102,10 +102,18 @@ class TestShardedPairGrid:
 
 
 class TestShardMapDryrun:
-    def test_dryrun_multichip(self):
+    def test_dryrun_multichip(self, monkeypatch):
+        """Runs both multi-device paths, and leaves the caller's schedule
+        settings as it found them."""
+        import os
+
         import __graft_entry__ as ge
 
+        monkeypatch.setenv("ANDIX_INDEX", "auto")
+        monkeypatch.delenv("ANDIX_CHAIN_SEGMENTS", raising=False)
         ge.dryrun_multichip(4)
+        assert os.environ["ANDIX_INDEX"] == "auto"
+        assert "ANDIX_CHAIN_SEGMENTS" not in os.environ
 
     def test_entry_compiles(self):
         import __graft_entry__ as ge

@@ -111,9 +111,9 @@ class TestDevicePlan:
         one-subject blocks on the host-LCP path (VERDICT r1 missing #2)."""
         subs = self._subs(29, 4_900_000)
         bs, mq = pipeline.device_plan(1 << 27, subs)
-        from andix.esa.backend_jax import DEVICE_MEM_BYTES
+        from andix.esa.backend_jax import device_mem_bytes
 
-        assert bs <= DEVICE_MEM_BYTES // 88
+        assert bs <= device_mem_bytes() // 88
         assert mq < sum((s.len - 1) // 2 + 1 for s in subs)
         blocks = pipeline.make_blocks(subs, bs, False, query_base=mq)
         assert all(len(b) >= 2 for b in blocks[:-1])
@@ -125,7 +125,7 @@ class TestDevicePlan:
         """The 8 x 5 Mbp config (80M real symbols -> 100.7M bucket) OOMed
         when the plan budgeted real symbols: every planned block's PADDED
         bucket must fit the BYTES_PER_PADDED_SYM SA-loop peak."""
-        from andix.esa.backend_jax import DEVICE_MEM_BYTES, bucket
+        from andix.esa.backend_jax import bucket, device_mem_bytes
 
         subs = self._subs(8, 5_000_000)
         bs, mq = pipeline.device_plan(1 << 40, subs)
@@ -135,14 +135,14 @@ class TestDevicePlan:
             real = q_base + sum(subs[i].len + 1 for i in b)
             assert (
                 bucket(real) * pipeline.BYTES_PER_PADDED_SYM
-                <= DEVICE_MEM_BYTES
+                <= device_mem_bytes()
             )
 
     def test_st131_full_shape_plan(self):
         """ST131 stretch config (BASELINE.json: 109 x ~1 Mbp): the device
         plan must chunk queries, pack several subjects per block, and keep
         every (block, chunk) text bucket inside the HBM budget."""
-        from andix.esa.backend_jax import DEVICE_MEM_BYTES, bucket
+        from andix.esa.backend_jax import bucket, device_mem_bytes
 
         subs = self._subs(109, 1_000_000)
         bs, mq = pipeline.device_plan(1 << 40, subs)
@@ -155,7 +155,7 @@ class TestDevicePlan:
             real = q_base + sum(subs[i].len + 1 for i in b)
             assert (
                 bucket(real) * pipeline.BYTES_PER_PADDED_SYM
-                <= DEVICE_MEM_BYTES
+                <= device_mem_bytes()
             )
         # chunk list covers every genome exactly once
         chunks = pipeline._query_chunks([], 109, subs, mq)
@@ -176,6 +176,66 @@ class TestDevicePlan:
         subs = self._subs(4, 1_000_000)
         _, mq = pipeline.device_plan(1 << 27, subs)
         assert mq == 12345
+
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self.device_kind = f"fake {platform}"
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+class TestDeviceMemBudget:
+    def test_gpu_budget_reads_bytes_limit(self, monkeypatch):
+        from andix.esa import backend_jax
+
+        limit = 60 * 2**30
+        monkeypatch.setattr(
+            backend_jax.jax, "local_devices",
+            lambda: [_FakeDevice("gpu", {"bytes_limit": limit})],
+        )
+        got = backend_jax.device_mem_bytes()
+        assert got == int(limit * backend_jax.DEVICE_MEM_SHARE)
+        assert got < limit
+
+    def test_cpu_budget_is_the_test_budget(self):
+        from andix.esa import backend_jax
+
+        assert backend_jax.device_mem_bytes() == backend_jax.CPU_TEST_MEM_BYTES
+
+    @pytest.mark.parametrize("stats", [None, {}, {"bytes_limit": 0}])
+    def test_device_without_limit_raises(self, monkeypatch, stats):
+        from andix.esa import backend_jax
+
+        monkeypatch.setattr(
+            backend_jax.jax, "local_devices",
+            lambda: [_FakeDevice("gpu", stats)],
+        )
+        with pytest.raises(RuntimeError, match="no memory limit"):
+            backend_jax.device_mem_bytes()
+
+    def test_larger_budget_keeps_8x5mbp_in_one_joint_block(self, monkeypatch):
+        """With an H100-sized budget the 8 x 5 Mbp family fits one joint
+        block, so the auto rule picks the joint schedule; the CPU test
+        budget splits it and picks the subject index."""
+        from types import SimpleNamespace
+
+        from andix.esa import backend_jax
+
+        monkeypatch.setattr(
+            backend_jax.jax, "local_devices",
+            lambda: [_FakeDevice("gpu", {"bytes_limit": 60 * 2**30})],
+        )
+        subs = [SimpleNamespace(len=2 * 5_000_000 + 1) for _ in range(8)]
+        seqs = [SimpleNamespace(len=5_000_000) for _ in range(8)]
+        bs, mq = pipeline.device_plan(1 << 40, subs)
+        assert pipeline.auto_schedule(seqs, subs, bs, mq) == "joint"
+        monkeypatch.undo()  # back to the CPU test budget
+        bs, mq = pipeline.device_plan(1 << 40, subs)
+        assert pipeline.auto_schedule(seqs, subs, bs, mq) == "subject"
 
 
 class TestCheckpoint:
